@@ -1,6 +1,6 @@
 // Native host-runtime components for quaff-tpu.
 //
-// The TPU compute path is JAX/XLA; this library provides the native host
+// The device compute path is JAX/XLA; this library provides the native host
 // pieces that feed it, mirroring the roles of the reference's C/C++
 // runtime (kseq/kseq.h streaming FASTQ parser; src/fastseq.cpp k-mer
 // index; src/diagenv.cpp per-diagonal k-mer match counting):

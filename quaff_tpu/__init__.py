@@ -1,8 +1,8 @@
-"""quaff-tpu: a TPU-native pair-HMM engine for noisy long-read sequencing.
+"""quaff-tpu: a pair-HMM engine for noisy long-read sequencing on GPUs.
 
 A from-scratch reimplementation of the capabilities of quaff (pair-HMM
-training / alignment / overlap detection for nanopore reads) designed for
-TPU hardware: the banded dynamic-programming recursions run as batched,
+training / alignment / overlap detection for nanopore reads) for
+accelerators: the banded dynamic-programming recursions run as batched,
 vectorised JAX computations (log-semiring row scans with associative
 in-row gap scans), data parallelism is expressed with jax.sharding /
 shard_map over device meshes, and E-step counts are reduced with on-device

@@ -8,7 +8,7 @@ with a {"quit":1} message.  Elastic provisioning shells out to the `aws`
 CLI exactly like the reference (run-instances with a base64 user-data
 bootstrap, wait instance-status-ok, terminate on exit and on signals).
 
-On TPU pods none of this is the scale-out path — that is the device mesh
+On GPU clusters none of this is the scale-out path — that is the device mesh
 (parallel/) — but it preserves the reference's operational surface for
 CPU-cluster deployments and loopback testing (tests use a stub ssh).
 """

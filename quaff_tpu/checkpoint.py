@@ -6,8 +6,8 @@ EM iteration count, the convergence baseline and the per-read ref
 orderings.  This module checkpoints the full EM state — parameters
 (reference-format JSON), iteration number, previous log-likelihood+prior,
 and per-read ref sort orders — atomically each iteration, so a preempted
-training job resumes with an identical trajectory (the TPU-world
-equivalent of preemption-safe orbax step checkpoints, using the
+training job resumes with an identical trajectory (the equivalent of
+preemption-safe orbax step checkpoints, using the
 reference's own human-readable artifact formats).
 """
 

@@ -4,7 +4,7 @@ Reproduces QuaffDPMatrix::write (qmodel.cpp:1325-1336): one line per
 in-envelope cell with the x/y symbols (and quality char) and the
 mat/ins/del values, a blank line between rows, and the end score.
 
-The reference dumps every matrix it builds; the TPU fast paths never
+The reference dumps every matrix it builds; the device scorers never
 materialise matrices, so dumps appear for the fills that do build them —
 the exact float64 traceback fills (the alignment winner, and every
 overlap pair).

@@ -45,7 +45,7 @@ import numpy as np
 from ..alphabet import ALPHABET_SIZE, QUAL_SCORE_RANGE
 from ..model.params import QuaffParams
 from .scores import ScoreTables
-from .engine import NEG_INF
+from .engine import NEG_INF, two_sum
 
 
 @dataclass
@@ -163,7 +163,7 @@ class OverlapScoreTables:
         )
         pair_nn = _ref_lse_chain(np.full((km, km), -np.inf), t_nn)
 
-        out = cls(
+        return cls(
             match_kmer_len=qp.match_kmer_len,
             indel_kmer_len=qp.indel_kmer_len,
             y_complemented=y_complemented,
@@ -183,20 +183,6 @@ class OverlapScoreTables:
             d2i_eff=float(log_1ge + log_1ga),
             d2d_eff=float(log_ge),
         )
-        # extras consumed by the Pallas overlap kernel (dp/pallas_overlap)
-        out.base_tables = tables
-        out.log_ref_base = np.log(qp.ref_base)
-        # per-indel-kmer gap-open logs: the kernel rebuilds m2m/m2i/m2d
-        # per cell from their separable form (qoverlap.cpp:35-39)
-        #   m2m[i][j] = stay[i] + stay[j]; m2i[i][j] = open[i];
-        #   m2d[i][j] = stay[i] + open[j]
-        out.log_gap_open = np.log(gap_open)
-        out.log_gap_stay = np.log(1 - gap_open)
-        r_ids = np.arange(ALPHABET_SIZE)
-        out.y_symbol_map = (
-            (ALPHABET_SIZE - 1 - r_ids) if y_complemented else r_ids
-        )
-        return out
 
 
 def _ref_lse_chain(acc: np.ndarray, terms: np.ndarray) -> np.ndarray:
@@ -243,6 +229,13 @@ def overlap_device_tables(t: OverlapScoreTables) -> dict:
             [t.i2m_eff, t.i2i_eff, t.i2d_eff, t.d2m_eff, t.d2i_eff, t.d2d_eff]
         ),
     }
+
+
+def overlap_bytes_per_row(width: int, rows: int, x_len: int) -> int:
+    """Device bytes one batch row (an envelope strip) takes in a
+    score-only overlap_fill: its x-side and y-side context arrays and
+    the [W] row states the scan carries and gathers into."""
+    return 4 * (4 * x_len + 5 * rows + 16 * width)
 
 
 def _mixed_recurrence(c_vec, k_vec, b_vec, neg_inf):
@@ -333,8 +326,15 @@ def overlap_fill(
     def gather_x(arr, idx):
         return jnp.take_along_axis(arr, jnp.clip(idx, 0, arr.shape[1] - 1), axis=1)
 
+    # Score-only fills rebase every row: the row's best match/insert state
+    # becomes 0 and the pair's offset (two floats, TwoSum) grows by it, so
+    # f32 rounding acts on per-row magnitudes rather than on the whole
+    # path's score.  A free start (absolute 0) is -offset in these terms.
+    # Fills that return matrices keep absolute values for the traceback.
+    rebase = not return_matrices
+
     def row_step(carry, j):
-        mat_p, ins_p, del_p, end = carry
+        mat_p, ins_p, del_p, end, end_lo, off_hi, off_lo = carry
 
         jt = j_off_c + j  # true row number per pair, [B, 1]
         idx = d_lo[:, None] + (jt - 1) + lane  # i-1 per lane
@@ -371,7 +371,8 @@ def overlap_fill(
             ins_p + i2m_e,
         )
         start_ok = (jt == 1) | (idx == 0)  # overlap: both ends free
-        mat_c = jnp.maximum(mat_c, jnp.where(start_ok, jnp.zeros((), dtype), neg_inf))
+        start = -(off_hi + off_lo)[:, None] if rebase else jnp.zeros((), dtype)
+        mat_c = jnp.maximum(mat_c, jnp.where(start_ok, start, neg_inf))
         mat_c = jnp.where(valid, mat_c + emit, neg_inf)
 
         # ins: sources on lane w+1 of the previous row; degenerate D->I
@@ -382,6 +383,13 @@ def overlap_fill(
             shift_hi(mat_p) + m2i_t[xik_i, yik_jm1],
         )
         ins_c = jnp.where(valid, ins_c, neg_inf)
+        if rebase:
+            top = jnp.max(jnp.maximum(mat_c, ins_c), axis=1)
+            top = jnp.where(jnp.isfinite(top), top, 0.0)
+            mat_c = mat_c - top[:, None]
+            ins_c = ins_c - top[:, None]
+            hi, err = two_sum(off_hi, top)
+            off_hi, off_lo = hi, off_lo + err
 
         # del: mixed max/lse in-row recurrence over lanes
         c_vec = jnp.where(valid, d2d_e, neg_inf)
@@ -393,16 +401,29 @@ def overlap_fill(
 
         # end: free at either sequence's end (qoverlap.cpp:151-153)
         end_ok = valid & ((jt == y_len[:, None]) | (idx == x_len[:, None] - 1))
-        end = jnp.maximum(end, jnp.max(jnp.where(end_ok, mat_c, neg_inf), axis=1))
+        row_end = jnp.max(jnp.where(end_ok, mat_c, neg_inf), axis=1)
+        if rebase:
+            # the best end so far, as two floats (end, end_lo)
+            cand_lo = off_lo + row_end
+            better = (off_hi - end) + (cand_lo - end_lo) > 0
+            better = better | (jnp.isfinite(row_end) & ~jnp.isfinite(end))
+            end = jnp.where(better, off_hi, end)
+            end_lo = jnp.where(better, cand_lo, end_lo)
+        else:
+            end = jnp.maximum(end, row_end)
 
-        return (mat_c, ins_c, del_c, end), (
+        return (mat_c, ins_c, del_c, end, end_lo, off_hi, off_lo), (
             (mat_c, ins_c, del_c) if return_matrices else None
         )
 
-    init = tuple(jnp.full(s, neg_inf, dtype) for s in [(B, W), (B, W), (B, W), (B,)])
-    (_, _, _, end), ys = jax.lax.scan(
+    init = tuple(
+        jnp.full(s, neg_inf, dtype) for s in [(B, W), (B, W), (B, W), (B,)]
+    ) + tuple(jnp.zeros((B,), dtype) for _ in range(3))
+    (_, _, _, end, end_lo, _, _), ys = jax.lax.scan(
         row_step, init, jnp.arange(1, Ly + 1, dtype=jnp.int32)
     )
+    if rebase:
+        end = jnp.where(jnp.isfinite(end_lo), end + end_lo, neg_inf)
 
     out = {
         "score": end + batch_dev["x_insert_score"].astype(dtype)

@@ -1,6 +1,6 @@
 """Device-resident log-score tables memoised from model parameters.
 
-The TPU equivalent of the reference's QuaffScores (src/qmodel.cpp:296-325):
+The equivalent of the reference's QuaffScores (src/qmodel.cpp:296-325):
 all transition log-probs and the full [ref symbol, read k-mer, quality]
 emission tables are precomputed host-side in float64 and shipped to the
 device once per parameter set, so the DP kernels only do gathers and adds.

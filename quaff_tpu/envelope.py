@@ -6,7 +6,7 @@ vectorised numpy: per-diagonal k-mer match counting via a sorted-array join
 selection logic (diagenv.cpp:20-106), band dilation, the always-included
 zeroth diagonal, and the storage halo.  In addition to the reference's
 sparse-diagonal view it exposes a dense band view (contiguous diagonal
-range + membership mask) which is what the TPU DP kernels consume: the DP
+range + membership mask) which is what the device DP scorers consume: the DP
 state for row j is a vector over the diagonal range, out-of-envelope lanes
 pinned to -inf.
 
@@ -299,9 +299,9 @@ def fit_envelope_lanes(
     whole diagonal range — the reference's ragged storage pays them
     per-diagonal, but a dense max_segs-packed layout pays the gap unions
     (measured: a 25 kb read's threshold-20 envelope packs to 124k lanes
-    where the true cluster needs ~300).  The kernel paths call this when
-    a pair's packed width exceeds their VMEM/HBM stream budgets; the f64
-    parity paths never do.
+    where the true cluster needs ~300).  The device paths call this when
+    a pair's packed width exceeds their lane cap; the f64 parity paths
+    never do.
 
     Diagonal 0 is always included (diagenv.cpp:52-54).  Seed levels are
     walked from the highest match count down, accepting a level only

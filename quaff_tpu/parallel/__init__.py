@@ -1,2 +1,2 @@
 from .mesh import make_mesh  # noqa: F401
-from .estep import sharded_estep, sharded_viterbi_scores  # noqa: F401
+from .estep import sharded_estep  # noqa: F401

@@ -1,12 +1,12 @@
 """Multi-host runtime initialisation and host-sharded input pipeline.
 
-On a TPU pod slice, scale-out follows the standard JAX multi-controller
-model: every host runs the same program, `jax.distributed.initialize`
-wires the runtime (the TPU-native replacement for the reference's ssh
-bootstrap handshake, qmodel.cpp:1093-1125), each host loads only its shard
-of the reads (replacing S3/rsync data staging, qmodel.cpp:1062-1085), and
-the global mesh spans all hosts' devices — E-step count psums ride ICI
-within a slice and DCN across slices.
+Scale-out follows the standard JAX multi-controller model: every
+process runs the same program, `jax.distributed.initialize` wires the
+runtime (the replacement for the reference's ssh bootstrap handshake,
+qmodel.cpp:1093-1125), each process loads only its shard of the reads
+(replacing S3/rsync data staging, qmodel.cpp:1062-1085), and the global
+mesh spans all processes' devices — E-step count psums ride NVLink
+between the GPUs of a host and the network between hosts.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ def init_distributed(
 ) -> None:
     """Initialise the multi-host runtime (no-op when single-process).
 
-    With no arguments, relies on the cluster environment (TPU pod
-    metadata / SLURM / GKE) exactly as jax.distributed does.
+    With no arguments, relies on the cluster environment (SLURM and the
+    like) exactly as jax.distributed does.
     """
     import jax
 

@@ -3,10 +3,10 @@
 The production-scale E-step: pair arrays carry leading dims [R reads,
 K refs]; reads shard over the mesh's "dp" axis, refs over "mp", score
 tables replicate.  Inside shard_map each device fills its local pair
-block with the banded DP kernels, the per-read log-likelihood is reduced
+block with the banded DP fills, the per-read log-likelihood is reduced
 with a mesh-wide log-sum-exp over the ref axis (pmax + psum), posterior
 count weighting happens on-device, and the final count pytree is psum'd
-over both axes — the TPU equivalent of the reference's client-side
+over both axes — the mesh equivalent of the reference's client-side
 addWeighted/finalCounts merge (qmodel.cpp:2416-2418).
 
 Differences from the sequential-parity path (trainer.py): every pair's
@@ -18,6 +18,7 @@ counts agree with the reference up to that pruning heuristic.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
@@ -29,45 +30,11 @@ from ..dp.counts import dp_forward_backward
 from ..dp.engine import NEG_INF, dp_fill
 
 
-def _lse_over_axis(x, axis_name):
-    """Numerically-stable log-sum-exp across a mesh axis (elementwise)."""
-    m = jax.lax.pmax(x, axis_name)
-    m = jnp.where(jnp.isfinite(m), m, 0.0)
-    s = jax.lax.psum(jnp.exp(x - m), axis_name)
-    return jnp.where(s > 0, m + jnp.log(s), NEG_INF)
-
-
 def _flatten_rk(tree):
     """[R, K, ...] -> [R*K, ...] for every leaf."""
     return jax.tree_util.tree_map(
         lambda a: a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:]), tree
     )
-
-
-def sharded_viterbi_scores(
-    mesh: Mesh, tables_dev: dict, pair_arrays: dict, local: bool = True,
-    dtype=jnp.float32,
-):
-    """Viterbi end scores for an [R, K] pair grid, sharded (dp, mp)."""
-
-    def body(tables, pairs):
-        r, k = pairs["y_len"].shape[:2]
-        flat = _flatten_rk(pairs)
-        scores = dp_fill(
-            tables, flat, mode="viterbi", local=local,
-            return_matrices=False, dtype=dtype,
-        )["score"]
-        return scores.reshape(r, k)
-
-    pspec = {name: P("dp", "mp") for name in pair_arrays}
-    f = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), pspec),
-        out_specs=P("dp", "mp"),
-        check_vma=False,
-    )
-    return f(tables_dev, pair_arrays)
 
 
 def sharded_estep(
@@ -89,21 +56,36 @@ def sharded_estep(
     total is addressable on every process of a multi-host run (per-read
     y_loglike shards are not).
     """
-
-    count_fields = (
-        "match_counts",
-        "insert_counts",
-        "m2m",
-        "m2i",
-        "m2d",
-        "m2e",
-        "i2i",
-        "i2m",
-        "d2d",
-        "d2m",
+    if read_mask is None:
+        read_mask = jnp.ones_like(null_loglike)
+    step = _estep_program(
+        mesh, tuple(sorted(pair_arrays)), local, dtype, num_match_kmers,
+        num_indel_kmers,
     )
+    return step(tables_dev, pair_arrays, null_loglike, read_mask)
 
-    def body(tables, pairs, null_ll, mask):
+
+_COUNT_FIELDS = (
+    "match_counts",
+    "insert_counts",
+    "m2m",
+    "m2i",
+    "m2d",
+    "m2e",
+    "i2i",
+    "i2m",
+    "d2d",
+    "d2m",
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _estep_program(mesh, names, local, dtype, num_match_kmers, num_indel_kmers):
+    """The mesh E-step as one jitted program, built once per mesh and
+    static configuration: run eagerly, shard_map compiles each of the
+    body's operations anew on every call (276 programs per `train` run)."""
+
+    def mesh_estep(tables, pairs, null_ll, mask):
         r, k = pairs["y_len"].shape[:2]
         flat = _flatten_rk(pairs)
         res = dp_forward_backward(
@@ -128,7 +110,7 @@ def sharded_estep(
             jnp.isfinite(fwd), jnp.exp(fwd - y_loglike[:, None]), 0.0
         )  # [r, k]
         totals = {}
-        for name in count_fields:
+        for name in _COUNT_FIELDS:
             c = res[name].reshape((r, k) + res[name].shape[1:])
             wc = w.reshape(w.shape + (1,) * (c.ndim - 2)).astype(c.dtype)
             local_sum = jnp.sum(c * wc, axis=(0, 1))
@@ -141,17 +123,16 @@ def sharded_estep(
         loglike = jax.lax.psum(jnp.sum(acc), "dp")
         return totals, loglike, y_loglike
 
-    if read_mask is None:
-        read_mask = jnp.ones_like(null_loglike)
-    pspec = {name: P("dp", "mp") for name in pair_arrays}
-    f = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), pspec, P("dp"), P("dp")),
-        out_specs=(P(), P(), P("dp")),
-        check_vma=False,
+    pspec = {name: P("dp", "mp") for name in names}
+    return jax.jit(
+        jax.shard_map(
+            mesh_estep,
+            mesh=mesh,
+            in_specs=(P(), pspec, P("dp"), P("dp")),
+            out_specs=(P(), P(), P("dp")),
+            check_vma=False,
+        )
     )
-    return f(tables_dev, pair_arrays, null_loglike, read_mask)
 
 
 def build_pair_grid(
@@ -184,7 +165,7 @@ def build_pair_grid(
 
 class MeshCountsProvider:
     """Mesh data-parallel E-step provider for trainer.fit(counts_provider=)
-    — the TPU-native replacement of farming count jobs to socket/qsub
+    — the device-mesh replacement of farming count jobs to socket/qsub
     workers each EM iteration (QuaffTrainer remote dispatch,
     qmodel.cpp:2034-2120): the [R, K] pair grid shards (dp, mp) over the
     device mesh, params-derived score tables replicate, and the count
@@ -195,8 +176,7 @@ class MeshCountsProvider:
     the score tables are recomputed and shipped.  Reads are padded to a
     multiple of the dp axis with sentinel entries whose null
     log-likelihood is +1e30 — their posterior weights are exactly zero
-    (the same sentinel-read trick the fused kernel E-step uses for
-    batch quantisation) and they are excluded from the returned
+    — and they are excluded from the returned
     log-likelihood.  Every (read, ref) pair is computed: the
     reference's Δ=20 ref skip (qmodel.cpp:2252-2255) becomes an exact
     negligible posterior weight, so sort_order passes through unchanged.
@@ -256,7 +236,7 @@ class MeshCountsProvider:
                             null_np, mask) -> bool:
         """Multi-host pair-grid assembly: each host builds ONLY its own
         dp-shard of the reads (host prep and memory scale 1/nprocs — the
-        pod-scale input pipeline, replacing the reference's S3/rsync data
+        cluster-scale input pipeline, replacing the reference's S3/rsync data
         staging qmodel.cpp:1062-1085).  Global shape agreement: row/ref
         padding is derived from the (replicated, cheap) sequence lists,
         and the band width is an allgathered max over the hosts' local
@@ -360,38 +340,6 @@ class MeshCountsProvider:
         return QuaffParamCounts.from_counts(qc), loglike, sort_order
 
 
-def sharded_align_engine(
-    mesh: Mesh,
-    tables_dev: dict,
-    batch: dict,  # leading axis [D, B, ...]: one pair chunk per device
-    mode: str = "viterbi",
-    local: bool = True,
-    dtype=jnp.float32,
-):
-    """Mesh-sharded XLA-engine scoring (the f64 parity fills of
-    dp/engine.dp_fill inside shard_map over "dp") — the align/overlap
-    scoring path for backends without the Pallas kernels (CPU), and the
-    byte-parity twin of sharded_align_kernel.  Scoring needs no
-    collective; returns scores [D, B] sharded over dp."""
-
-    def body(tables, bt):
-        local_batch = {k: v[0] for k, v in bt.items()}
-        s = dp_fill(
-            tables, local_batch, mode=mode, local=local,
-            return_matrices=False, dtype=dtype,
-        )["score"]
-        return s[None]
-
-    f = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), {k: P("dp") for k in batch}),
-        out_specs=P("dp"),
-        check_vma=False,
-    )
-    return f(tables_dev, batch)
-
-
 def gather_scores(scores) -> np.ndarray:
     """Fetch a dp-sharded score array to every host: plain np.asarray on
     one controller, an allgather across the processes of a multi-host
@@ -403,240 +351,109 @@ def gather_scores(scores) -> np.ndarray:
     return np.asarray(scores)
 
 
-def sharded_align_kernel(
+def _engine_scores(tables, batch, mode, local, dtype):
+    return dp_fill(
+        tables, batch, mode=mode, local=local, return_matrices=False,
+        dtype=dtype,
+    )["score"]
+
+
+def _kernel_scores(tables, batch, local, reach):
+    from ..dp.align_kernel import viterbi_scores
+
+    return viterbi_scores(tables, batch, local=local, reach=reach)
+
+
+def _overlap_scores(tables, batch):
+    from ..dp.overlap import overlap_fill
+
+    return overlap_fill(
+        tables, batch, return_matrices=False, dtype=jnp.float32
+    )["score"]
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_program(mesh, names, scorer, static):
+    """`scorer(tables, chunk, *static)` over a [D, B, ...] batch, one chunk
+    per device of the mesh's "dp" axis, as one jitted program built once
+    per mesh, batch fields, scorer and static arguments."""
+
+    def mesh_scores(tables, bt):
+        return scorer(tables, {k: v[0] for k, v in bt.items()}, *static)[None]
+
+    return jax.jit(
+        jax.shard_map(
+            mesh_scores,
+            mesh=mesh,
+            in_specs=(P(), {k: P("dp") for k in names}),
+            out_specs=P("dp"),
+            check_vma=False,
+        )
+    )
+
+
+def sharded_align_engine(
     mesh: Mesh,
-    v2tab,
-    batch: dict,  # leading axis [D, B, ...]: one packed chunk per device
+    tables_dev: dict,
+    batch: dict,  # leading axis [D, B, ...]: one pair chunk per device
     mode: str = "viterbi",
     local: bool = True,
-    interpret: bool = False,
+    dtype=jnp.float32,
 ):
-    """Pod-scale production align scoring: the v2 Pallas banded scorer
-    (dp/pallas_v2.scores_v2_traceable) inside a shard_map over the
-    mesh's "dp" axis — one packed pair chunk per device.
+    """Mesh-sharded XLA-engine scoring (the f64 parity fills of
+    dp/engine.dp_fill inside shard_map over "dp") — the align scoring
+    path where the device scorers do not run (the CPU), and the
+    byte-parity twin of sharded_align_scores.  Scoring needs no
+    collective; returns scores [D, B] sharded over dp."""
+    step = _chunk_program(
+        mesh, tuple(sorted(batch)), _engine_scores, (mode, local, dtype)
+    )
+    return step(tables_dev, batch)
 
-    The TPU-pod equivalent of farming one read-task per worker
+
+def sharded_align_scores(
+    mesh: Mesh,
+    tables_dev: dict,
+    batch: dict,  # leading axis [D, B, ...]: one packed chunk per device
+    local: bool = True,
+    reach: int = None,
+):
+    """Mesh-sharded align scoring with the align kernel
+    (dp/align_kernel.viterbi_scores) inside a shard_map over the mesh's
+    "dp" axis — one lane-packed pair chunk per device.
+
+    The mesh equivalent of farming one read-task per worker
     (runQuaffAlignmentTasks, qmodel.cpp:2870-2882): read chunks shard
     over dp, score tables replicate, and no collective is needed —
     alignment scoring is embarrassingly parallel; winner selection and
-    the f64 traceback stay host-side exactly as in the single-chip
-    aligner fast path (aligner.py).
+    the f64 traceback stay host-side exactly as in the single-device
+    aligner (aligner.py).
 
-    Returns scores [D, B] (sharded over dp).
+    Returns pair scores [D, B] (sharded over dp).
     """
-    import types
-
-    from ..dp.pallas_v2 import scores_v2_traceable
-
-    n_ik = int(getattr(v2tab, "n_ik", 0))
-
-    def body(emis, insv, ik, trans4, bt):
-        tab = types.SimpleNamespace(
-            emis=emis, insv=insv, ik=ik, trans=trans4, n_ik=n_ik
-        )
-        local_batch = {k: v[0] for k, v in bt.items()}
-        s = scores_v2_traceable(
-            tab, local_batch, mode=mode, local=local, interpret=interpret
-        )
-        return s[None]
-
-    f = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P(), {k: P("dp") for k in batch}),
-        out_specs=P("dp"),
-        check_vma=False,
+    step = _chunk_program(
+        mesh, tuple(sorted(batch)), _kernel_scores, (local, reach)
     )
-    return f(
-        v2tab.emis, v2tab.insv, v2tab.ik,
-        jnp.asarray(v2tab.trans, jnp.float32), batch,
-    )
+    return step(tables_dev, batch)
 
 
-def sharded_overlap_kernel(
+def sharded_overlap_scores(
     mesh: Mesh,
-    tables,  # OverlapScoreTables (one strand)
-    batch: dict,  # leading axis [D, B, ...]: one overlap chunk per device
-    n_rows: int = None,
-    interpret: bool = False,
-    bank: dict = None,  # sequence-bank arrays, replicated (no [D] axis)
+    tables_dev: dict,  # overlap_device_tables of one strand
+    batch: dict,  # leading axis [D, B, ...]: one strip chunk per device
 ):
-    """Pod-scale all-vs-all overlap scoring: the fused Pallas overlap
-    scorer (dp/pallas_overlap.py) inside a shard_map over the mesh's
-    "dp" axis — one pair chunk per device, pair-emission tables
-    replicated (hoisted once per (params, strand), unlike the
-    reference's per-task rebuild, qoverlap.cpp:77-79).
+    """Mesh-sharded all-vs-all overlap scoring: overlap_fill (f32,
+    score-only) inside a shard_map over the mesh's "dp" axis — one chunk
+    of envelope strips per device, pair-emission tables replicated
+    (hoisted once per (params, strand), unlike the reference's per-task
+    rebuild, qoverlap.cpp:77-79).
 
     The mesh analogue of the overlap pair scheduler's task farming
-    (qoverlap.cpp:554-566): pair chunks shard over dp; scoring needs no
+    (qoverlap.cpp:554-566): chunks shard over dp; scoring needs no
     collective, and the exact-pass traceback stays host-side as in the
-    single-chip pipeline (overlap.py).
+    single-device pipeline (overlap.py).
 
-    Returns end + x/y insert scores [D, B] (sharded over dp) — the same
-    quantity as overlap_scores_kernel's non-segment path.
+    Returns strip scores (end + x/y insert scores) [D, B], sharded over dp.
     """
-    from ..dp.pallas_overlap import (
-        _ov_fill,
-        _ov_prepare_device,
-        _ov_tabs,
-        _round_up,
-    )
-
-    if "member_packed" in batch:
-        D, B, W8 = batch["member_packed"].shape
-        W0 = W8 * 8
-    else:
-        D, B, W0 = batch["member"].shape
-    Ly = int(n_rows) if n_rows is not None else int(batch["y_match_kmer"].shape[2])
-    W = _round_up(max(int(W0), 128), 128)
-    Bp = _round_up(int(B), 8)
-    n_segs = int(batch["seg_d_lo"].shape[2]) if "seg_d_lo" in batch else 1
-    prep_rows = "x_row" in batch or "j_off" in batch
-    mk, ik = tables.match_kmer_len, tables.indel_kmer_len
-
-    trans9 = jnp.asarray(
-        [
-            float(tables.m2m[0, 0]),
-            float(tables.m2i[0, 0]),
-            float(tables.m2d[0, 0]),
-            tables.i2m_eff,
-            tables.i2i_eff,
-            tables.i2d_eff,
-            tables.d2m_eff,
-            tables.d2i_eff,
-            tables.d2d_eff,
-        ],
-        jnp.float32,
-    )
-    tabs = _ov_tabs(tables)
-
-    def body(tb, tr9, bt, bk):
-        local = {k: v[0] for k, v in bt.items()}
-        local.update(bk)
-        pr = _ov_prepare_device(
-            tb, local, W, Bp,
-            n_rows=Ly if prep_rows else None, trans9=tr9,
-            mk_len=mk, ik_len=ik,
-        )
-        rows, member_f, a0, a1, a2, a3, c0, meta, doff, snew, go0, g10 = pr
-        out = _ov_fill(
-            rows, member_f, a0, a1, a2, a3, c0, meta, doff, snew,
-            width=W, b_pad=Bp, n_rows=Ly, n_segs=n_segs,
-            interpret=interpret, go0=go0, g10=g10,
-        )
-        end = jnp.max(out[:B], axis=1)
-        end = jnp.where(end <= NEG_INF / 2, -jnp.inf, end)
-        s = (
-            end
-            + local["x_insert_score"].astype(jnp.float32)
-            + local["y_insert_score"].astype(jnp.float32)
-        )
-        return s[None]
-
-    if bank is None:
-        bank = {}
-    f = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), P(), {k: P("dp") for k in batch},
-                  {k: P() for k in bank}),
-        out_specs=P("dp"),
-        check_vma=False,
-    )
-    return f(tabs, trans9, batch, bank)
-
-
-def sharded_estep_kernel(
-    mesh: Mesh,
-    v2tab,
-    batch: dict,  # leading axis [D, B, ...]: one packed chunk per device
-    gid: jnp.ndarray,  # [D, B] read-group id of each pair within its chunk
-    null_ll: jnp.ndarray,  # [D, G] per-group null log-likelihood
-    local: bool = True,
-    Km: int = 16,
-    Ki: int = 1,
-    interpret: bool = False,
-):
-    """Pod-scale fused E-step: the production Pallas forward/backward
-    kernels (dp/pallas_counts.py) inside a shard_map over the mesh's
-    "dp" axis.
-
-    Each device runs the SAME single-dispatch fused E-step the one-chip
-    trainer uses (`_estep_fused_core`: device prep, forward fill with
-    stored rows, on-device read-posterior weights, weighted
-    backward-counts sweep) on its own packed pair chunk; the count
-    totals are then psum'd across the mesh — the TPU-pod equivalent of
-    the reference's client-side counts merge (addWeighted
-    qmodel.cpp:1656-1673 + finalCounts qmodel.cpp:2416-2418), with the
-    300x banded-kernel advantage intact (the XLA-engine sharded path,
-    `sharded_estep`, is launch-latency bound on TPU hardware).
-
-    A read's pairs must stay within ONE device's chunk (in-kernel
-    posterior weights normalise over the refs present in the chunk) —
-    the same invariant the single-chip trainer's chunking already keeps.
-
-    Returns (fwd [D, B], y_ll [D, G], totals).  totals carries the
-    mesh-summed count tables: match_counts [4, Km, Q], insert_counts
-    [4, Q], m2m/m2i/m2d/m2e [Ki] — like estep_fused_multi's — plus
-    i2i/i2m/d2d/d2m as mesh-summed SCALARS (estep_fused_multi returns
-    those per pair; the per-pair breakdown is not meaningful across a
-    mesh reduction, and trainers only consume the sums).
-    back_start_post (a per-pair diagnostic) is not returned.
-    """
-    from ..alphabet import QUAL_SCORE_RANGE
-    from ..dp.pallas_counts import _estep_fused_core
-
-    Q = QUAL_SCORE_RANGE
-    D, B = gid.shape
-    G = null_ll.shape[1]
-    n_match = 4 * Km * Q
-    n_ins = 4 * Q
-    n_ik = 4 * Ki
-
-    def body(emis, insv, ik, trans4, bt, gd, nl):
-        local_batch = {k: v[0] for k, v in bt.items()}
-        packed = _estep_fused_core(
-            emis, insv, ik, local_batch, gd[0], nl[0], trans4,
-            local=local, Km=Km, Ki=Ki, interpret=interpret,
-        )
-        o = 0
-        fwd = packed[o : o + B]; o += B
-        y_ll = packed[o : o + G]; o += G
-        counts_vec = jax.lax.psum(
-            packed[o : o + n_match + n_ins + n_ik], "dp"
-        )
-        o += n_match + n_ins + n_ik
-        sc = packed[o : o + 5 * B].reshape(5, B)
-        sc_tot = jax.lax.psum(jnp.sum(sc[:4], axis=1), "dp")  # [4]
-        return fwd[None], y_ll[None], counts_vec, sc_tot
-
-    f = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P(), {k: P("dp") for k in batch}, P("dp"),
-                  P("dp")),
-        out_specs=(P("dp"), P("dp"), P(), P()),
-        check_vma=False,
-    )
-    fwd, y_ll, counts_vec, sc_tot = f(
-        v2tab.emis, v2tab.insv, v2tab.ik,
-        jnp.asarray(v2tab.trans, jnp.float32), batch, gid, null_ll,
-    )
-    o = 0
-    cv = counts_vec
-    match = cv[o : o + n_match].reshape(4, Km, Q); o += n_match
-    insert = cv[o : o + n_ins].reshape(4, Q); o += n_ins
-    ik4 = cv[o : o + n_ik].reshape(4, Ki)
-    totals = {
-        "match_counts": match,
-        "insert_counts": insert,
-        "m2m": ik4[0],
-        "m2i": ik4[1],
-        "m2d": ik4[2],
-        "m2e": ik4[3],
-        "i2i": sc_tot[0],
-        "i2m": sc_tot[1],
-        "d2d": sc_tot[2],
-        "d2m": sc_tot[3],
-    }
-    return fwd, y_ll, totals
+    step = _chunk_program(mesh, tuple(sorted(batch)), _overlap_scores, ())
+    return step(tables_dev, batch)

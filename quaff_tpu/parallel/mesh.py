@@ -1,7 +1,7 @@
 """Device mesh construction for data x ref parallel execution.
 
 The reference's four scale-out backends (thread pool, socket remotes,
-qsub/NFS, elastic EC2; src/qmodel.h:256-356) collapse on TPU into a single
+qsub/NFS, elastic EC2; src/qmodel.h:256-356) collapse into a single
 abstraction: a jax.sharding.Mesh with a read data-parallel axis ("dp") and
 a reference-set axis ("mp").  Reads shard over dp, references over mp,
 parameters/score tables replicate, and E-step count reduction is an

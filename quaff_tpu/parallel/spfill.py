@@ -6,7 +6,7 @@ partitioned across an "sp" mesh axis.  Per DP row:
 
   * match state is embarrassingly parallel (same-lane dependency);
   * the insert state's lane-(w+1) dependency needs one halo column from
-    the right neighbour (ppermute over ICI);
+    the right neighbour (ppermute);
   * the in-row delete recursion — a prefix scan in the (max,+) or
     (logaddexp,+) semiring — becomes a textbook distributed scan: local
     prefix per shard, all_gather of the S per-shard aggregates, exclusive

@@ -1,10 +1,9 @@
 """Scoped float64 enablement.
 
 Golden-parity computations (XLA fills feeding tracebacks and text output)
-require f64; the Pallas production kernels require the default 32-bit
-mode (Mosaic rejects 64-bit values).  On CPU backends x64 is simply on
-globally; on accelerator backends parity computations run on the CPU
-device inside this scope.
+require f64; the device scorers run in float32 with x64 off (see
+cli._setup_jax).  On CPU backends x64 is simply on globally; on a GPU
+parity computations run on the CPU device inside this scope.
 """
 
 from __future__ import annotations

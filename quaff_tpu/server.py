@@ -9,7 +9,7 @@ Count jobs carry the full params+null model and return counts JSON with
 {"yName","xSort","loglike","counts"}; align/overlap jobs carry sequence
 names and return formatted alignment text.
 
-On TPU pods the native scale-out path is the device mesh (parallel/);
+On GPU clusters the native scale-out path is the device mesh (parallel/);
 this protocol exists for reference-parity deployments and loopback tests.
 """
 

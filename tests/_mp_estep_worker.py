@@ -6,7 +6,7 @@ Each process owns 4 virtual CPU devices; the two processes form one
 8-device (dp=4, mp=2) global mesh and run the sharded E-step
 (parallel/estep.py) over a deterministic pair grid.  Process 0 writes
 the (replicated) count totals and the total log-likelihood to out.npz.
-This is the TPU-native analogue of the reference's loopback `-remote
+This is the device-mesh analogue of the reference's loopback `-remote
 localhost:PORT` distributed test (Makefile:158-176): a REAL second
 process, real cross-process collectives, results asserted against the
 single-process path by the parent test.

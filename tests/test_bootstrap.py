@@ -39,7 +39,7 @@ def _free_port():
 
 @pytest.mark.slow
 def test_ssh_bootstrap_align_golden(data_dir, stub_ssh, monkeypatch):
-    monkeypatch.setenv("QUAFF_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     monkeypatch.setenv("QUAFF_TPU_X64", "1")
     import pathlib
     import sys

@@ -233,7 +233,7 @@ def test_verbosity_flags_accepted(data_dir):
 def test_qsub_header_and_opts(data_dir, tmp_path, monkeypatch):
     """-qsubheader prepends the header file to job.sh and -qsubopts rides
     the submission command line (makeQsubScript, qmodel.cpp:1030-1039)."""
-    monkeypatch.setenv("QUAFF_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     monkeypatch.setenv("QUAFF_TPU_X64", "1")
     header = tmp_path / "header.sh"
     header.write_text("#!/bin/sh\n# PBS -l walltime=1:00:00\n")
@@ -285,50 +285,25 @@ def test_sshkey_and_remotepath_parse():
     assert cmd[-2:] == ["me@host", "echo hi"]
 
 
-def test_probe_platform_cache(tmp_path, monkeypatch):
-    """The CLI accelerator probe caches a successful platform result on
-    disk for QUAFF_TPU_PROBE_TTL seconds (round 5: the ~10 s subprocess
-    jax import dominated one-shot walls), and re-probes past the TTL."""
-    import json
-    import time as _time
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compile_cache_location(tmp_path, monkeypatch, env_dir):
+    """The persistent compile cache lands where JAX_COMPILATION_CACHE_DIR
+    says (the helper then sets nothing), and in <checkout>/.jax_cache
+    when it is unset."""
+    import pathlib
 
-    import quaff_tpu.cli as cli
+    import jax
 
-    calls = []
+    from quaff_tpu.device import setup_compile_cache
 
-    class R:
-        returncode = 0
-        stdout = b"tpu\n"
-
-    def fake_run(*a, **kw):
-        calls.append(a)
-        return R()
-
-    import subprocess as _sp
-
-    monkeypatch.setattr(_sp, "run", fake_run)  # cli imports it lazily
-    monkeypatch.setattr(
-        "tempfile.gettempdir", lambda: str(tmp_path)
-    )
-    monkeypatch.setenv("QUAFF_TPU_PROBE_TTL", "600")
-    monkeypatch.delenv("QUAFF_TPU_PROBE_TIMEOUT", raising=False)
-
-    assert cli._probe_platform() == "tpu"
-    assert len(calls) == 1
-    # second call hits the disk cache: no subprocess
-    assert cli._probe_platform() == "tpu"
-    assert len(calls) == 1
-    # expire the cache entry -> re-probe
-    import os as _os
-
-    cache = [p for p in tmp_path.iterdir() if "quaff_tpu_probe" in p.name]
-    assert len(cache) == 1
-    c = json.loads(cache[0].read_text())
-    c["time"] = _time.time() - 1200
-    cache[0].write_text(json.dumps(c))
-    assert cli._probe_platform() == "tpu"
-    assert len(calls) == 2
-    # TTL=0 disables the cache entirely
-    monkeypatch.setenv("QUAFF_TPU_PROBE_TTL", "0")
-    assert cli._probe_platform() == "tpu"
-    assert len(calls) == 3
+    seen = []
+    monkeypatch.setattr(jax.config, "update", lambda k, v: seen.append((k, v)))
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        setup_compile_cache()
+        assert seen == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        setup_compile_cache()
+        root = pathlib.Path(__file__).resolve().parent.parent
+        assert seen == [("jax_compilation_cache_dir", str(root / ".jax_cache"))]

@@ -1,5 +1,5 @@
-"""`count -fast`: the production-precision E-step (f32; kernel on TPU,
-XLA engine elsewhere; `-mesh`-shardable) as an opt-in replacement for the
+"""`count -fast`: the production-precision E-step (f32; on the GPU where
+there is one; `-mesh`-shardable) as an opt-in replacement for the
 f64 CPU parity artifact (reference workload: t/quaff.cpp:183-211).
 
 The documented tolerance (docs/manual.md "count -fast"): every count

@@ -1,7 +1,7 @@
 """Quantified EM-trajectory drift of the production (f32, exact
 posterior weighting) train path vs the f64 parity path.
 
-The TPU train path intentionally diverges from the reference's EM
+The mesh train path intentionally diverges from the reference's EM
 semantics: every (read, ref) pair's backward pass is computed with the
 posterior weight doing the pruning exactly (instead of the Δ=20
 running-loglike skip, qmodel.cpp:2252-2255), and the fills run in f32

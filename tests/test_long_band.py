@@ -99,16 +99,15 @@ def test_fitted_envelope_same_alignment():
 
 
 def test_trainer_long_band_guard_engages(monkeypatch):
-    """With a tiny HBM stream budget the kernel E-step re-bands wide
+    """With a tight lane cap the batched device E-step re-bands wide
     pairs automatically and still produces counts close to the f64
     engine's on the unfitted envelope (the dropped noise diagonals carry
     negligible posterior mass)."""
-    import quaff_tpu.trainer as trainer_mod
     from quaff_tpu.aligner import DPConfig
     from quaff_tpu.trainer import QuaffCounter
 
     rng = np.random.default_rng(13)
-    # smaller than the other tests: the kernel runs in interpret mode here
+    # smaller than the other tests
     src = "".join(BASES[i] for i in rng.integers(0, 4, size=250))
     motif = src[40:100]
     ref_seq = (
@@ -136,26 +135,15 @@ def test_trainer_long_band_guard_engages(monkeypatch):
         return orig_fit(*a, **k)
 
     monkeypatch.setattr(env_mod, "fit_envelope_lanes", spy)
-    # budget so tight the ~250-lane scattered band must refit
-    monkeypatch.setattr(trainer_mod, "_ESTEP_HBM_BYTES", 6e6)
-
-    # CPU backend: the fused kernel must run in interpret mode
-    import quaff_tpu.dp.pallas_counts as pc
-
-    orig_multi = pc.estep_fused_multi
-
-    def interp_multi(*a, **k):
-        k.setdefault("interpret", True)
-        return orig_multi(*a, **k)
-
-    monkeypatch.setattr(pc, "estep_fused_multi", interp_multi)
+    # cap so tight the scattered bounding band must refit
+    monkeypatch.setenv("QUAFF_ESTEP_LANE_CAP", "300")
 
     comp = QuaffCounter(params, null, config)
-    monkeypatch.setattr(comp, "_use_kernel", lambda y: True)
+    monkeypatch.setattr(comp, "_use_device", lambda: True)
     counts_k, ll_k, _ = comp.get_counts([ref], reads, [[0], [0]])
     assert calls, "long-band guard never engaged"
 
-    comp64 = QuaffCounter(params, null, config, prefer_kernel=False)
+    comp64 = QuaffCounter(params, null, config, prefer_device=False)
     counts_e, ll_e, _ = comp64.get_counts([ref], reads, [[0], [0]])
 
     assert abs(ll_k - ll_e) < 5e-3 * abs(ll_e) + 5e-3
@@ -192,17 +180,16 @@ def test_trainer_oversize_read_falls_back_to_engine(monkeypatch):
     # cap below any real band width: every read is oversize
     monkeypatch.setenv("QUAFF_ESTEP_LANE_CAP", "8")
     comp = QuaffCounter(params, null, config)
-    monkeypatch.setattr(comp, "_use_kernel", lambda y: True)
-    # the kernel itself must never be dispatched
-    import quaff_tpu.dp.pallas_counts as pc
+    monkeypatch.setattr(comp, "_use_device", lambda: True)
+    # the batched device E-step must never run for an oversize read
 
     def boom(*a, **k):
-        raise AssertionError("kernel dispatched for oversize read")
+        raise AssertionError("batched E-step ran for an oversize read")
 
-    monkeypatch.setattr(pc, "estep_fused_multi", boom)
+    monkeypatch.setattr(comp, "_device_estep", boom)
     counts_k, ll_k, orders_k = comp.get_counts([ref], reads, [[0], [0]])
 
-    comp64 = QuaffCounter(params, null, config, prefer_kernel=False)
+    comp64 = QuaffCounter(params, null, config, prefer_device=False)
     counts_e, ll_e, orders_e = comp64.get_counts([ref], reads, [[0], [0]])
     assert ll_k == ll_e
     assert orders_k == orders_e
@@ -211,7 +198,7 @@ def test_trainer_oversize_read_falls_back_to_engine(monkeypatch):
 
 def test_overlap_wide_pairs_exact_pass(monkeypatch):
     """Overlap pairs whose band exceeds the lane cap even after refit
-    skip kernel scoring and take the host exact pass, in pair order —
+    skip device scoring and take the host exact pass, in pair order —
     output identical to the sequential CPU path."""
     import io
 
@@ -244,18 +231,16 @@ def test_overlap_wide_pairs_exact_pass(monkeypatch):
     out_seq = io.StringIO()
     ov.align_all(out_seq, seqs, len(reads), printer)
 
-    # batched path with every pair forced wide: no kernel dispatches
+    # batched path with every pair forced wide: no device dispatches
+    from quaff_tpu.device import DISPATCHES
+
     monkeypatch.setenv("QUAFF_OVERLAP_LANE_CAP", "2")
-    import quaff_tpu.dp.pallas_overlap as po
-
-    def boom(*a, **k):
-        raise AssertionError("kernel dispatched for wide pair")
-
-    monkeypatch.setattr(po, "overlap_scores_kernel", boom)
+    before = DISPATCHES["overlap"]
     ov2 = QuaffOverlapAligner(params, null, config)
     out_b = io.StringIO()
     pair_list = list(ov2.enumerate_pairs(seqs, len(reads)))
     printer.write_header(out_b, seqs, group_by_query=False)
     ov2._align_all_batched(out_b, seqs, pair_list, printer)
 
+    assert DISPATCHES["overlap"] == before
     assert out_b.getvalue() == out_seq.getvalue()

@@ -60,13 +60,13 @@ def test_mesh_align_printall_sam():
 def test_mesh_align_multichunk_mixed_ref_lengths(tmp_path, monkeypatch):
     """Regression: chunks within one mesh dispatch group must stack even
     when they contain references of different lengths (the ref-axis
-    padding is pinned to the global max).  A tiny VMEM-cell override
+    padding is pinned to the global max).  A zero device memory budget
     forces the chunker to emit several small chunks per group."""
     import numpy as np
 
     from quaff_tpu.alphabet import DNA_ALPHABET
 
-    monkeypatch.setenv("QUAFF_V2_VMEM_CELLS", str(128 * 2))
+    monkeypatch.setattr("quaff_tpu.device.memory_limit_bytes", lambda: 0)
     rng = np.random.default_rng(5)
     refs = []
     for i, n in enumerate((80, 200, 140)):  # mixed ref lengths
@@ -134,7 +134,7 @@ def test_mesh_overlap_with_threshold():
 
 
 def test_mesh_align_wide_band_sp_fill(monkeypatch):
-    """A pair too wide for the kernel's VMEM on a -mesh run scores via
+    """A pair wider than the align kernel's widest block on a -mesh run scores via
     the band-sharded sp fill (parallel/spfill, SURVEY §5.7) — wired in
     round 4; output must stay byte-identical to the sequential path."""
     import quaff_tpu.aligner as amod
@@ -149,7 +149,7 @@ def test_mesh_align_wide_band_sp_fill(monkeypatch):
 
     # every envelope counts as "wide": the kernel path is forbidden and
     # all scoring must go through sp_fill_scores
-    monkeypatch.setattr(amod, "WIDE_ENVELOPE_FALLBACK_LANES", 1)
+    monkeypatch.setattr("quaff_tpu.dp.align_kernel.MAX_LANES", 1)
     calls = []
     orig = spmod.sp_fill_scores
 
@@ -163,7 +163,6 @@ def test_mesh_align_wide_band_sp_fill(monkeypatch):
     monkeypatch.setattr(
         amod.QuaffAligner, "_use_fast_scores", lambda self: True
     )
-    monkeypatch.setenv("QUAFF_V2_INTERPRET", "1")
     rc, mesh = _run(base + ["-mesh"])
     assert rc == 0
     assert calls, "sp fill never engaged for wide pairs"

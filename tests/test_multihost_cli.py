@@ -4,7 +4,7 @@ as a real 2-process jax.distributed cluster.
 The reference proves its scale-out through the product: the client
 sshes to localhost, starts a real worker process, and the merged output
 must be byte-identical to the single-process golden (Makefile:158-176,
-control plane qmodel.cpp:1093-1125).  The TPU-native equivalent here:
+control plane qmodel.cpp:1093-1125).  The device-mesh equivalent here:
 two OS processes each run the SAME `quaff-tpu train ... -mesh
 -coordinator 127.0.0.1:PORT -nprocs 2 -procid I` command, join one
 jax.distributed cluster (4 virtual CPU devices each -> one global
@@ -57,7 +57,7 @@ def _cli_env(n_devices: int) -> dict:
     env["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={n_devices}"
     )
-    env["QUAFF_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return env
 

@@ -3,7 +3,7 @@
 The reference proves its distributed backend with a loopback test — the
 client really sshes to localhost, starts a real second process, and the
 merged output must be byte-identical to the single-process golden
-(Makefile:158-176).  The TPU-native equivalent: two REAL processes join
+(Makefile:158-176).  The device-mesh equivalent: two REAL processes join
 one jax.distributed cluster (parallel/distributed.init_distributed), form
 an 8-device (dp=4, mp=2) global CPU mesh, and run the shard_map E-step
 with cross-process Gloo collectives; the psum'd count totals must match

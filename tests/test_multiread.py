@@ -69,7 +69,6 @@ def test_wide_envelope_fallback_matches(monkeypatch):
 
     import numpy as np
 
-    import quaff_tpu.aligner as amod
     from quaff_tpu.aligner import DPConfig, QuaffAligner
     from quaff_tpu.formats.alignment import AlignmentPrinter, OutputFormat
     from quaff_tpu.io.fastseq import FastSeq
@@ -99,7 +98,7 @@ def test_wide_envelope_fallback_matches(monkeypatch):
     aligner = QuaffAligner(default_params(), null, DPConfig())
     # force the batched path + the fallback branch regardless of backend
     monkeypatch.setattr(QuaffAligner, "_use_fast_scores", lambda self: True)
-    monkeypatch.setattr(amod, "WIDE_ENVELOPE_FALLBACK_LANES", 0)
+    monkeypatch.setattr("quaff_tpu.dp.align_kernel.MAX_LANES", 0)
     plog = ProgressLogger(level=99)
     plog.init_progress("test")
     per_read = aligner._align_batched([ref], reads, plog)
@@ -109,37 +108,8 @@ def test_wide_envelope_fallback_matches(monkeypatch):
         assert aligns and np.isfinite(aligns[0].score)
 
 
-def _fake_kernel_scores():
-    """scores_v2_device stand-in that runs the Pallas kernel in interpret
-    mode (CPU) with the production signature, incl. deferred fetch."""
-    import numpy as np
-
-    from quaff_tpu.dp.pallas_v2 import NEG_INF, scores_v2_traceable
-
-    def fake(tables, v2tab, batch, mode="viterbi", local=True,
-             rows_per_step=1, return_segments=False, defer_fetch=False,
-             max_prop=None):
-        dev = scores_v2_traceable(
-            v2tab, batch, mode=mode, local=local, interpret=True,
-            return_segments=return_segments, max_prop=max_prop,
-        )
-        if return_segments and defer_fetch:
-            return dev
-        if return_segments:
-            B = batch["member"].shape[0]
-            S = np.asarray(batch["seg_start"]).shape[1]
-            packed = np.asarray(dev, dtype=np.float64)
-            s = packed[:B]
-            s = np.where(np.isfinite(s) & (s > NEG_INF / 2), s, -np.inf)
-            return s, packed[B:].reshape(B, S)
-        s = np.asarray(dev).astype(np.float64)
-        return np.where(np.isfinite(s) & (s > NEG_INF / 2), s, -np.inf)
-
-    return fake
-
-
 def test_batched_fast_path_matches_parity(monkeypatch):
-    """The TPU fast path (kernel phase-B with per-strip scores, strip-
+    """The device path (kernel phase-B with per-strip scores, strip-
     scoped winner fills, pipelined phase C on a thread pool) must write
     byte-identical output to the CPU parity path.  Reads contain a
     repeated region so envelopes split into multiple strips and the
@@ -194,11 +164,10 @@ def test_batched_fast_path_matches_parity(monkeypatch):
         parity = io.StringIO()
         aligner.align_all(parity, [ref1, ref2], reads, printer)
 
+        # the device path on the CPU: the align kernel runs in the
+        # Pallas interpreter
         monkeypatch.setattr(
             QuaffAligner, "_use_fast_scores", lambda self: True
-        )
-        monkeypatch.setattr(
-            "quaff_tpu.dp.pallas_v2.scores_v2_device", _fake_kernel_scores()
         )
         aligner2 = QuaffAligner(
             default_params(), null, cfg, print_all=print_all

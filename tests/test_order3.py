@@ -8,10 +8,7 @@ Oracles generated with the reference binary (tools/oracle/build_ref.sh):
   quaff align synth12-genome.fasta synth12.fastq -kmatchn 10 -nothreshold
         -params <that json>              -> synth12-align-order3.oracle.stk
 
-These pin the CPU parity path and the mesh plumbing at Km=256.  The TPU
-kernel path at order 3 is validated on hardware by
-tools/prof/order3_tpu_check.py (fast-path align byte-identical to the
-CPU parity output; see CLAUDE.md round-3 notes for the run record).
+These pin the CPU parity path and the mesh plumbing at Km=256.
 
 refBase is excluded from the train comparison (reference UB, see
 test_train_golden.py).

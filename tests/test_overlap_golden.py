@@ -46,13 +46,12 @@ def test_c8f30_self_overlap_golden(data_dir, copy_file):
 
 
 def test_batched_exact_pass_matches_per_pair():
-    """The TPU path's bucketed exact pass (padded, multi-pair fills) must
+    """The batched path's bucketed exact pass (padded, multi-pair fills) must
     produce byte-identical alignments to the sequential per-pair path —
     padding lanes/rows sit outside the envelope so the banded fill and
     the traceback never read them."""
     import numpy as np
 
-    from quaff_tpu.dp.pallas_v2 import _round_up
     from quaff_tpu.io.fastseq import FastSeq, KmerIndex
     from quaff_tpu.overlap import OverlapBatch
     import io as _io
@@ -105,7 +104,7 @@ def test_batched_exact_pass_matches_per_pair():
     # member, and these overlaps sit on distant diagonals)
     assert any(len(env.strips()) > 1 for *_, env in jobs)
 
-    # the production TPU exact pass: per-strip batched fills
+    # the production exact pass: per-strip batched fills
     results = aligner._exact_pass(reads, jobs)
     got = [results[(nx, ny)] for nx, ny, _, _ in jobs]
 
@@ -117,11 +116,10 @@ def test_batched_exact_pass_matches_per_pair():
         assert a.score == b.score
         assert format_alignment(a) == format_alignment(b)
 
-    # seg-score strip filtering (kernel per-strip end maxima in
+    # seg-score strip filtering (the device's per-strip scores in
     # production) must not change any output: build the per-strip scores
     # from exact fills and re-run the pass with the filter active
     from quaff_tpu.dp.overlap import overlap_device_tables, overlap_fill
-    from quaff_tpu.dp.pallas_overlap import MAX_SEGS
     from quaff_tpu.envelope import pack_strips
     from quaff_tpu.overlap import OverlapBatch
     import jax.numpy as jnp
@@ -130,8 +128,8 @@ def test_batched_exact_pass_matches_per_pair():
     for nx, ny, yc, env in jobs:
         tables = aligner._tables(yc)[0]
         tdev = aligner._tdev(yc)  # engine device tables build lazily
-        segs = pack_strips(env, MAX_SEGS)
-        sm = np.full(MAX_SEGS, -np.inf)
+        segs = pack_strips(env, 3)
+        sm = np.full(3, -np.inf)
         for k, s in enumerate(segs):
             sm[k] = float(
                 np.asarray(

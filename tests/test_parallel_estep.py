@@ -3,7 +3,7 @@
 The dp x mp shard_map E-step (parallel/estep.py) — mesh-wide
 log-sum-exp over the ref axis, on-device posterior weighting, psum'd
 count pytree — must reproduce the single-device engine path's totals
-and per-read log-likelihoods.  This is the TPU analogue of the
+and per-read log-likelihoods.  This is the device-mesh analogue of the
 reference's distributed-counts merge (addWeighted qmodel.cpp:1656-1673
 + finalCounts qmodel.cpp:2416-2418), exercised the way the loopback
 socket tests exercise the reference's remote path (Makefile:158-176).
@@ -22,7 +22,11 @@ from quaff_tpu.dp.engine import PairBatch, device_batch, device_tables  # noqa: 
 from quaff_tpu.dp.scores import ScoreTables  # noqa: E402
 from quaff_tpu.io.fastseq import FastSeq, KmerIndex  # noqa: E402
 from quaff_tpu.model.params import QuaffNullParams, default_params  # noqa: E402
-from quaff_tpu.parallel.estep import build_pair_grid, sharded_estep  # noqa: E402
+from quaff_tpu.parallel.estep import (  # noqa: E402
+    _estep_program,
+    build_pair_grid,
+    sharded_estep,
+)
 from quaff_tpu.parallel.mesh import make_mesh  # noqa: E402
 
 
@@ -102,3 +106,16 @@ def test_sharded_estep_matches_single_device():
     # posterior-normalised mass check: every read's match+insert counts
     # sum to its emitted length when posteriors sum to 1 over refs+null
     assert float(np.sum(np.asarray(counts["match_counts"]))) > 0
+
+    # a second call on the same grid (the next EM iteration) reuses the
+    # compiled mesh program
+    sharded_estep(
+        mesh, tdev, grid, null_ll, local=True, dtype=jnp.float32,
+        num_match_kmers=params.num_match_kmers,
+        num_indel_kmers=params.num_indel_kmers,
+    )
+    step = _estep_program(
+        mesh, tuple(sorted(grid)), True, jnp.float32,
+        params.num_match_kmers, params.num_indel_kmers,
+    )
+    assert step._cache_size() == 1

@@ -20,7 +20,7 @@ from quaff_tpu.cli import main
 @pytest.fixture(autouse=True)
 def _worker_env(monkeypatch):
     # job subprocesses must compute in f64 on CPU for golden parity
-    monkeypatch.setenv("QUAFF_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     monkeypatch.setenv("QUAFF_TPU_X64", "1")
 
 

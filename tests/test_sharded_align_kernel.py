@@ -1,7 +1,6 @@
-"""Pod-scale production align scoring under shard_map (8 virtual CPU
-devices): sharded_align_kernel runs the v2 Pallas banded Viterbi scorer
-per device chunk; its scores must equal running scores_v2_traceable
-chunk by chunk.
+"""Mesh align scoring under shard_map (8 virtual CPU devices):
+sharded_align_scores runs the align kernel per device chunk; its scores
+must equal running viterbi_scores chunk by chunk.
 """
 
 import numpy as np
@@ -13,12 +12,12 @@ from jax.sharding import Mesh  # noqa: E402
 
 from quaff_tpu.aligner import DPConfig, VITERBI_CELL_SIZE  # noqa: E402
 from quaff_tpu.alphabet import DNA_ALPHABET  # noqa: E402
-from quaff_tpu.dp.engine import PairBatch, device_batch  # noqa: E402
-from quaff_tpu.dp.pallas_v2 import V2Tables, scores_v2_traceable  # noqa: E402
+from quaff_tpu.dp.align_kernel import viterbi_scores  # noqa: E402
+from quaff_tpu.dp.engine import PairBatch, device_batch, device_tables  # noqa: E402
 from quaff_tpu.dp.scores import ScoreTables  # noqa: E402
 from quaff_tpu.io.fastseq import FastSeq, KmerIndex  # noqa: E402
 from quaff_tpu.model.params import default_params  # noqa: E402
-from quaff_tpu.parallel.estep import sharded_align_kernel  # noqa: E402
+from quaff_tpu.parallel.estep import sharded_align_scores  # noqa: E402
 
 
 def test_sharded_align_kernel_matches_chunked():
@@ -28,7 +27,7 @@ def test_sharded_align_kernel_matches_chunked():
     rng = np.random.default_rng(7)
     params = default_params()
     tables = ScoreTables.from_params(params)
-    v2tab = V2Tables(tables)
+    tdev = device_tables(tables)
 
     def rand_seq(n):
         return "".join(DNA_ALPHABET[t] for t in rng.integers(0, 4, n))
@@ -63,19 +62,10 @@ def test_sharded_align_kernel_matches_chunked():
 
     devices = np.array(jax.devices()[:8]).reshape(8, 1)
     mesh = Mesh(devices, ("dp", "mp"))
-    scores = sharded_align_kernel(
-        mesh, v2tab, stacked, mode="viterbi", local=True, interpret=True
-    )
+    scores = sharded_align_scores(mesh, tdev, stacked, local=True)
 
     want = np.stack(
-        [
-            np.asarray(
-                scores_v2_traceable(
-                    v2tab, c, mode="viterbi", local=True, interpret=True
-                )
-            )
-            for c in chunks
-        ]
+        [np.asarray(viterbi_scores(tdev, c, local=True)) for c in chunks]
     )
     got = np.asarray(scores, np.float64)
     assert got.shape == want.shape == (8, len(refs))

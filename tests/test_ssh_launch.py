@@ -18,9 +18,8 @@ from quaff_tpu.cli import main
 
 @pytest.fixture(autouse=True)
 def _worker_env(monkeypatch):
-    monkeypatch.setenv("QUAFF_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     monkeypatch.setenv("QUAFF_TPU_X64", "1")
-    monkeypatch.setenv("QUAFF_TPU_COMPILE_CACHE", "/tmp/jax_cache")
 
 
 def _free_port() -> int:

@@ -108,35 +108,34 @@ def _synthetic_multistrip(rng, n, yl=90):
     return out
 
 
-@pytest.mark.parametrize("mode", ["viterbi", "forward"])
-def test_packed_kernel_matches_legacy(mode):
+@pytest.mark.parametrize("local", [True, False])
+def test_packed_kernel_matches_legacy(local):
     """Lane-packed strip batches must score identically (f32) to the
-    legacy bounding-band kernel layout."""
-    from quaff_tpu.dp.pallas_v2 import V2Tables, scores_v2_traceable
+    bounding-band layout in the align kernel."""
+    from quaff_tpu.dp.align_kernel import viterbi_scores
 
     rng = np.random.default_rng(21)
     tables = ScoreTables.from_params(default_params())
     pairs = _synthetic_multistrip(rng, 4)
     assert any(len(e.strips()) >= 2 for _, _, e in pairs)
 
-    v2tab = V2Tables(tables)
-    legacy = np.asarray(scores_v2_traceable(
-        v2tab, device_batch(PairBatch.build(pairs, tables)),
-        mode=mode, local=True, interpret=True,
+    tdev = device_tables(tables)
+    legacy = np.asarray(viterbi_scores(
+        tdev, device_batch(PairBatch.build(pairs, tables)), local=local,
     ))
     packed_b = PairBatch.build_packed(pairs, tables)
     assert packed_b.member.shape[1] < PairBatch.build(pairs, tables).member.shape[1]
-    packed = np.asarray(scores_v2_traceable(
-        v2tab, device_batch(packed_b), mode=mode, local=True, interpret=True,
+    packed = np.asarray(viterbi_scores(
+        tdev, device_batch(packed_b), local=local,
     ))
     np.testing.assert_allclose(packed, legacy, rtol=1e-5, atol=1e-3)
 
 
 def test_packed_kernel_segment_scores():
-    """return_segments: per-strip end maxima from the packed kernel must
+    """return_segments: per-strip scores from the packed kernel must
     match independent per-strip fills (pack_strips order), and the pair
     score must equal the max over its strips."""
-    from quaff_tpu.dp.pallas_v2 import V2Tables, scores_v2_traceable
+    from quaff_tpu.dp.align_kernel import viterbi_scores
     from quaff_tpu.envelope import pack_strips
 
     rng = np.random.default_rng(27)
@@ -144,16 +143,13 @@ def test_packed_kernel_segment_scores():
     pairs = _synthetic_multistrip(rng, 4)
     assert any(len(pack_strips(e, 3)) >= 2 for _, _, e in pairs)
 
-    v2tab = V2Tables(tables)
+    tdev = device_tables(tables)
     packed_b = PairBatch.build_packed(pairs, tables)
-    packed = np.asarray(scores_v2_traceable(
-        v2tab, device_batch(packed_b), mode="viterbi", local=True,
-        interpret=True, return_segments=True,
-    ))
-    B = len(pairs)
+    scores, segmax = viterbi_scores(
+        tdev, device_batch(packed_b), local=True, return_segments=True,
+    )
+    scores, segmax = np.asarray(scores), np.asarray(segmax)
     n_segs = packed_b.seg_d_lo.shape[1]
-    scores = packed[:B]
-    segmax = packed[B:].reshape(B, n_segs)
 
     tdev = device_tables(tables)
     for b, (x, y, env) in enumerate(pairs):
@@ -180,44 +176,37 @@ def test_packed_kernel_segment_scores():
         )
 
 
-def test_packed_estep_matches_engine():
-    """Fused E-step on a packed batch matches the f64 engine's
-    posterior-weighted totals."""
-    from quaff_tpu.dp.counts import dp_forward_backward
-    from quaff_tpu.dp.pallas_counts import estep_fused
-    from quaff_tpu.dp.pallas_v2 import V2Tables
+def test_packed_estep_matches_engine(monkeypatch):
+    """The batched device E-step (QuaffCounter._get_counts_batched: one
+    f32 dp_forward_backward per bucket, host-side weighting) matches the
+    f64 per-read engine on multi-strip envelopes within the count -fast
+    tolerance."""
+    from quaff_tpu.aligner import DPConfig
+    from quaff_tpu.model.params import QuaffNullParams
+    from quaff_tpu.trainer import QuaffCounter
 
     rng = np.random.default_rng(23)
-    tables = ScoreTables.from_params(default_params())
     pairs = _synthetic_multistrip(rng, 3)
-    tdev = device_tables(tables)
+    ref = pairs[0][0]
+    reads = [y for _, y, _ in pairs]
+    null = QuaffNullParams.fit(reads)
+    cfg = DPConfig(kmer_threshold=10)
+    exact = QuaffCounter(default_params(), null, cfg, prefer_device=False)
+    c64, ll64, o64 = exact.get_counts([ref], reads)
 
-    ref = dp_forward_backward(
-        tdev, device_batch(PairBatch.build(pairs, tables)),
-        local=True, dtype=jnp.float64, num_match_kmers=4, num_indel_kmers=1,
-    )
-    fwd_ref = np.asarray(ref["fwd_score"])
-    null_ll = float(np.max(fwd_ref))
-    y_ll_ref = np.logaddexp.reduce(np.concatenate([[null_ll], fwd_ref]))
-    weights = np.exp(fwd_ref - y_ll_ref)
-
-    v2tab = V2Tables(tables)
-    fwd, y_ll, counts = estep_fused(
-        tables, v2tab, device_batch(PairBatch.build_packed(pairs, tables)),
-        null_ll, local=True, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(fwd), fwd_ref, rtol=1e-5, atol=1e-3)
-    np.testing.assert_allclose(float(np.asarray(y_ll).reshape(-1)[0]), y_ll_ref, rtol=1e-5, atol=1e-3)
-    for name in ("match_counts", "insert_counts", "m2m", "m2i", "m2d", "m2e"):
-        want = np.tensordot(weights, np.asarray(ref[name]), axes=(0, 0))
-        np.testing.assert_allclose(
-            np.asarray(counts[name]), want, rtol=3e-3, atol=5e-3, err_msg=name
-        )
-    for name in ("i2i", "i2m", "d2d", "d2m"):
-        want = weights * np.asarray(ref[name])
-        np.testing.assert_allclose(
-            np.asarray(counts[name]), want, rtol=3e-3, atol=5e-3, err_msg=name
-        )
+    cfg32 = DPConfig(kmer_threshold=10, dtype=jnp.float32)
+    dev = QuaffCounter(default_params(), null, cfg32)
+    monkeypatch.setattr(dev, "_use_device", lambda: True)
+    c32, ll32, o32 = dev.get_counts([ref], reads)
+    assert o32 == o64
+    assert abs(ll32 - ll64) <= 5e-3 + 5e-3 * abs(ll64)
+    for name in (
+        "match", "insert", "begin_insert_no", "begin_insert_yes",
+        "begin_delete_no", "begin_delete_yes", "extend_insert_no",
+        "extend_insert_yes", "extend_delete_no", "extend_delete_yes",
+    ):
+        a, b = np.asarray(getattr(c32, name)), np.asarray(getattr(c64, name))
+        assert np.all(np.abs(a - b) <= 5e-3 + 5e-3 * np.abs(b)), name
 
 
 def test_dp_fill_rejects_packed():
@@ -262,28 +251,21 @@ def test_host_batch_matches_device_batch():
 
 
 def test_packed_kernel_max_prop_invariant():
-    """Bounding the del-scan reach at the max strip width (pow2) must not
+    """Bounding the delete-scan reach at the widest strip (pow2) must not
     change any packed-kernel score: halo lanes already stop legal
     propagation at strip seams."""
-    from quaff_tpu.dp.pallas_v2 import (
-        V2Tables,
-        batch_max_prop,
-        scores_v2_traceable,
-    )
+    from quaff_tpu.dp.align_kernel import scan_reach, viterbi_scores
 
     rng = np.random.default_rng(29)
     tables = ScoreTables.from_params(default_params())
+    tdev = device_tables(tables)
     pairs = _synthetic_multistrip(rng, 4)
-    v2tab = V2Tables(tables)
     b = PairBatch.build_packed(pairs, tables)
-    mp = batch_max_prop(b)
-    assert mp is not None and mp < 128 * 2  # strips are narrow here
-    for mode in ("viterbi", "forward"):
-        full = np.asarray(scores_v2_traceable(
-            v2tab, device_batch(b), mode=mode, local=True, interpret=True,
-        ))
-        capped = np.asarray(scores_v2_traceable(
-            v2tab, device_batch(b), mode=mode, local=True, interpret=True,
-            max_prop=mp,
+    reach = scan_reach(b.seg_width)
+    assert reach < 128 * 2  # strips are narrow here
+    for local in (True, False):
+        full = np.asarray(viterbi_scores(tdev, device_batch(b), local=local))
+        capped = np.asarray(viterbi_scores(
+            tdev, device_batch(b), local=local, reach=reach,
         ))
         np.testing.assert_array_equal(capped, full)

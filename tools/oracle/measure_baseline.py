@@ -12,8 +12,8 @@ Builds nothing itself — run tools/oracle/build_ref.sh first.  Reports:
 4. synth12 12-read align wall -> reads/s at 300 bp reads.
 
 Each timing is the median of N runs (this VM has bursty CPU steal —
-see CLAUDE.md).  Prints one JSON object; paste into BASELINE.md and
-bench.py's REF_MEASURED when re-measuring on a new host.
+see CLAUDE.md).  Prints one JSON object; paste into BASELINE.md when
+re-measuring on a new host.
 """
 
 import json
@@ -54,9 +54,8 @@ def med(cmd, n=9):
 
 def overlap_reads(n=8):
     """All-vs-all overlap workload: n substrings of c8f30 (1/3 to 1/2
-    length, 5% substitutions) — the same shape tools/prof/overlap_prof.py
-    profiles.  MUST stay in sync with bench.py::_overlap_reads so the
-    vs_ref_overlap multiplier compares identical inputs."""
+    length, 5% substitutions) — the shape of chip_smoke.py's overlap
+    workload."""
     import numpy as np
 
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
@@ -113,7 +112,7 @@ def main():
     ov_pairs = n_ov * (n_ov - 1) // 2
     # 16-read point (120 pairs): pairs/s is N-independent for the
     # single-threaded reference; this corroborates the 8-read number at
-    # the scale bench.py's overlap_pairs_per_sec_16 metric uses
+    # 16 reads
     ov16_reads = overlap_reads(16)
     ov16_path = pathlib.Path(SCRATCH) / "ovreads16.fastq"
     with open(ov16_path, "w") as fh:
